@@ -1,0 +1,341 @@
+"""CUDA ADDMUL kernels: build, load, and the four launch wrappers.
+
+``csrc/addmul.cu`` holds one templated kernel, compiled with ``nvcc`` for
+``sm_90a`` into ``build/repro_torch/<source hash>/libcmm_kernels.so`` at
+first use and loaded with ``ctypes`` (a plain C interface: no PyTorch
+headers, so a build takes seconds).  Each wrapper below replaces one TPU
+kernel of the JAX reference:
+
+========================  ==============================================
+wrapper                   replaces (``src/repro/kernels/``)
+========================  ==============================================
+``addmul``                ``matmul.py::addmul`` (``_addmul_kernel``)
+``addmul_epilogue``       ``matmul.py::addmul_epilogue`` (``_addmul_epi_kernel``)
+``addmul_batched``        ``ops.py::addmul_batched`` (``jax.vmap`` of both)
+``matmul``                ``matmul.py::matmul`` (``_mm_kernel``)
+========================  ==============================================
+
+What bounds them on the H100: at the CMM tile sizes (256-2048) a tile
+product does ~n/12 f64 FLOPs per byte moved (n/6 in f32), far above the
+card's ridge point, so the FMA rate bounds them: 67 TFLOP/s FP64 on the
+tensor cores, 34 TFLOP/s FP64 and 67 TFLOP/s FP32 on the FMA units the
+kernel uses.  Its design answers with a 4x4 register block per thread over
+shared-memory stages (4 shared loads feed 16 FMAs per k step); ``wgmma``/TMA
+staging is later work.
+
+For tensors on the CPU every wrapper runs its plain PyTorch version
+(``kernels/ref.py``); for CUDA tensors it launches the kernel or raises.
+Each wrapper counts its launches in ``<wrapper>.launches``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Optional, Sequence
+
+import torch
+
+from . import ref
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "addmul.cu"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: limits and block shape compiled into the kernel (checked at load).
+#: An epilogue program grows with the user's single-consumer elementwise
+#: chain (core/fusion.py sets no bound); the paper suite's longest is 7
+#: instructions over 3 extras (Leontief).  Longer programs raise.
+MAX_EXTRAS = 16
+MAX_PROG = 64
+BLOCK = (64, 64, 16)           # (rows, cols, k) of one thread block
+
+_DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
+
+#: FUSED-program opcodes, in csrc/addmul.cu's order
+_EWISE_OPS = ("sin", "cos", "exp", "tanh", "abs", "relu", "sqrt", "sign")
+_SCALE_OPS = {"add": 9, "sub": 10, "rsub": 11, "scale": 12, "mul": 12,
+              "ewmul": 12, "div": 13, "rdiv": 14}
+_BINARY_OPS = {"add": 15, "sub": 16, "ewmul": 17}
+
+
+class _Operand(ctypes.Structure):
+    _fields_ = [("ptr", ctypes.c_void_p), ("sg", ctypes.c_int64),
+                ("sr", ctypes.c_int64), ("sc", ctypes.c_int64),
+                ("dtype", ctypes.c_int), ("pad", ctypes.c_int)]
+
+
+class _Instr(ctypes.Structure):
+    _fields_ = [("op", ctypes.c_int), ("a", ctypes.c_int),
+                ("b", ctypes.c_int), ("pad", ctypes.c_int),
+                ("s", ctypes.c_double)]
+
+
+class _Params(ctypes.Structure):
+    _fields_ = ([(f, ctypes.c_int) for f in
+                 ("G", "M", "N", "K", "has_c", "n_extras", "n_prog",
+                  "acc_f64", "epi_f64", "pad0", "pad1", "pad2")]
+                + [(f, _Operand) for f in ("A", "B", "C", "O")]
+                + [("E", _Operand * MAX_EXTRAS), ("prog", _Instr * MAX_PROG)])
+
+
+def encode_program(prog: Sequence[tuple]) -> list:
+    """The FUSED tile program as kernel instructions ``(op, a, b, s)``.
+
+    Slot ``("in", 0)`` is the accumulator, ``("in", k)`` extra ``k - 1``.
+    Raises ``ValueError`` beyond the kernel's ``MAX_PROG`` instructions.
+    """
+    if len(prog) > MAX_PROG:
+        raise ValueError(f"epilogue program of {len(prog)} instructions "
+                         f"exceeds the kernel's limit of {MAX_PROG}")
+    out = []
+    for ins in prog:
+        kind = ins[0]
+        if kind == "in":
+            out.append((0, ins[1], 0, 0.0))
+        elif kind == "ewise":
+            out.append((1 + _EWISE_OPS.index(ins[1]), ins[2], 0, 0.0))
+        elif kind == "scale":
+            out.append((_SCALE_OPS[ins[1]], ins[3], 0, float(ins[2])))
+        else:
+            out.append((_BINARY_OPS[kind], ins[1], ins[2], 0.0))
+    return out
+
+
+# -- build and load ------------------------------------------------------
+
+_build_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+#: what the last build printed (``-Xptxas -v``: registers, spills) and took
+build_log = ""
+build_seconds = 0.0
+
+
+def library_path() -> Path:
+    """Where the library built from the current source and flags lives."""
+    h = hashlib.sha256(SOURCE.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_ROOT / h.hexdigest()[:16] / "libcmm_kernels.so"
+
+
+def build() -> Path:
+    """Compile ``csrc/addmul.cu`` unless this source was built already."""
+    global build_log, build_seconds
+    out = library_path()
+    if out.exists():
+        return out
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f".{os.getpid()}.{out.name}")
+    t0 = time.perf_counter()
+    res = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+                         capture_output=True, text=True)
+    build_seconds = time.perf_counter() - t0
+    build_log = res.stdout + res.stderr
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{build_log}")
+    os.replace(tmp, out)
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built at first use."""
+    global _lib
+    with _build_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            lib.cmm_addmul.argtypes = [ctypes.POINTER(_Params),
+                                       ctypes.c_void_p]
+            lib.cmm_addmul.restype = ctypes.c_int
+            lib.cmm_error_string.argtypes = [ctypes.c_int]
+            lib.cmm_error_string.restype = ctypes.c_char_p
+            lib.cmm_params_size.argtypes = []
+            lib.cmm_params_size.restype = ctypes.c_int
+            lib.cmm_config.argtypes = [ctypes.POINTER(ctypes.c_int)]
+            lib.cmm_config.restype = None
+            cfg = (ctypes.c_int * 5)()
+            lib.cmm_config(cfg)
+            if (lib.cmm_params_size() != ctypes.sizeof(_Params)
+                    or tuple(cfg) != (MAX_EXTRAS, MAX_PROG) + BLOCK):
+                raise RuntimeError("libcmm_kernels.so does not match the "
+                                   "ctypes layout in kernels/matmul.py")
+            _lib = lib
+    return _lib
+
+
+# -- launch ----------------------------------------------------------------
+
+_count_lock = threading.Lock()
+
+
+def _count(wrapper) -> None:
+    with _count_lock:
+        wrapper.launches += 1
+
+
+def reset_launches() -> None:
+    """Set every wrapper's launch count to 0."""
+    with _count_lock:
+        for w in WRAPPERS:
+            w.launches = 0
+
+
+def _on_cpu(*ts: Optional[torch.Tensor]) -> bool:
+    """True if every tensor lies on the CPU, False if all lie on one CUDA
+    device; raises for any other mix."""
+    devs = {t.device for t in ts if t is not None}
+    if len(devs) != 1:
+        raise ValueError(f"kernel operands on several devices: {devs}")
+    dev = devs.pop()
+    if dev.type == "cpu":
+        return True
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    return False
+
+
+def _operand(t: torch.Tensor) -> _Operand:
+    code = _DTYPE_CODE.get(t.dtype)
+    if code is None:
+        raise TypeError(f"the CUDA addmul kernel takes f32, f64 and bf16, "
+                        f"not {t.dtype}")
+    sg, sr, sc = t.stride()
+    return _Operand(t.data_ptr(), sg, sr, sc, code, 0)
+
+
+def _launch(c: Optional[torch.Tensor], a: torch.Tensor, b: torch.Tensor,
+            out: torch.Tensor, instrs: list,
+            extras: Sequence[torch.Tensor]) -> None:
+    """Enqueue ``out = epilogue(c + a @ b)`` on 3-D (G, ., .) CUDA tensors;
+    ``instrs`` is the encoded epilogue program (empty: none)."""
+    G, M, K = a.shape
+    N = b.shape[2]
+    acc = ref.accumulator_dtype(a.dtype, b.dtype,
+                                *(() if c is None else (c.dtype,)))
+    p = _Params(G=G, M=M, N=N, K=K, has_c=int(c is not None),
+                n_extras=len(extras), n_prog=len(instrs),
+                acc_f64=int(acc == torch.float64),
+                epi_f64=int(ref.epilogue_dtype(acc, extras)
+                            == torch.float64))
+    p.A, p.B, p.O = _operand(a), _operand(b), _operand(out)
+    if c is not None:
+        p.C = _operand(c)
+    for i, e in enumerate(extras):
+        p.E[i] = _operand(e)
+    for i, (op, sa, sb, s) in enumerate(instrs):
+        p.prog[i] = _Instr(op, sa, sb, 0, s)
+    lib = library()
+    # the launch goes to the calling thread's current device: make it the
+    # operands' (executor pool threads start on device 0)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        rc = lib.cmm_addmul(ctypes.byref(p), ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"cmm_addmul launch failed: CUDA error {rc} "
+                           f"({lib.cmm_error_string(rc).decode()})")
+
+
+def _check_shapes(c, a, b, extras, batched: bool) -> None:
+    nd = 3 if batched else 2
+    if a.ndim != nd or b.ndim != nd:
+        raise ValueError(f"expected {nd}-D operands, got {tuple(a.shape)} "
+                         f"@ {tuple(b.shape)}")
+    if a.shape[:-2] != b.shape[:-2] or a.shape[-1] != b.shape[-2]:
+        raise ValueError(f"bad matmul shapes {tuple(a.shape)} @ "
+                         f"{tuple(b.shape)}")
+    want = a.shape[:-1] + b.shape[-1:]
+    for t in ([c] if c is not None else []) + list(extras):
+        if t.shape != want:
+            raise ValueError(f"operand of shape {tuple(t.shape)} where "
+                             f"{tuple(want)} is needed")
+
+
+def _into(out: Optional[torch.Tensor], shape, dtype, device) -> torch.Tensor:
+    if out is None:
+        return torch.empty(shape, dtype=dtype, device=device)
+    if out.shape != shape or out.dtype != dtype:
+        raise ValueError(f"out is {tuple(out.shape)} {out.dtype}, the "
+                         f"result is {tuple(shape)} {dtype}")
+    return out
+
+
+def _run(wrapper, c, a, b, out, prog, extras, out_dtype, batched):
+    """Shared body of the wrappers: the plain version on the CPU, the
+    kernel (counted) on CUDA.  ``out`` may alias ``c`` (each element of C
+    is read once, by the thread that stores it), never ``a`` or ``b``."""
+    _check_shapes(c, a, b, extras, batched)
+    if len(extras) > MAX_EXTRAS:
+        raise ValueError(f"{len(extras)} epilogue extras exceed the "
+                         f"kernel's limit of {MAX_EXTRAS}")
+    # the same limits hold on both paths, so CPU runs refuse what the
+    # card would refuse
+    instrs = encode_program(prog) if prog is not None else []
+    on_cpu = _on_cpu(c, a, b, out, *extras)
+    if c is None:
+        res_dtype = torch.promote_types(a.dtype, b.dtype)
+    elif prog is None:
+        res_dtype = c.dtype
+    else:
+        res_dtype = out_dtype or ref.epilogue_out_dtype(c, extras)
+    shape = a.shape[:-1] + b.shape[-1:]
+    if on_cpu:
+        val = ref.matmul(a, b) if c is None else \
+            ref.addmul(c, a, b, prog=prog, extras=extras,
+                       out_dtype=res_dtype)
+        if out is None:
+            return val
+        _into(out, shape, res_dtype, out.device).copy_(val)
+        return out
+    out = _into(out, shape, res_dtype, a.device)
+    if not batched:
+        c, a, b, out = (None if c is None else c[None]), a[None], b[None], \
+            out[None]
+        extras = [e[None] for e in extras]
+    _launch(c, a, b, out, instrs, extras)
+    _count(wrapper)
+    return out[0] if not batched else out
+
+
+def addmul(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor, *,
+           out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K1: ``c + a @ b`` in C's dtype; 2-D operands of any strides."""
+    return _run(addmul, c, a, b, out, None, (), None, batched=False)
+
+
+def addmul_epilogue(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                    *extras: torch.Tensor, prog: tuple,
+                    out_dtype: Optional[torch.dtype] = None,
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K2: ``prog(c + a @ b, *extras)`` applied before the single store;
+    ``out_dtype`` overrides the store type (bf16 in mixed precision)."""
+    return _run(addmul_epilogue, c, a, b, out, tuple(prog), extras,
+                out_dtype, batched=False)
+
+
+def addmul_batched(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor, *,
+                   prog: Optional[tuple] = None,
+                   extras: Sequence[torch.Tensor] = (),
+                   out_dtype: Optional[torch.dtype] = None,
+                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K3: ``out[g] = prog(c[g] + a[g] @ b[g], extras[g])`` for every group
+    member in one launch; (G, m, k) operands of any strides."""
+    return _run(addmul_batched, c, a, b, out,
+                None if prog is None else tuple(prog), tuple(extras),
+                out_dtype, batched=True)
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor, *,
+           out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K4: ``a @ b`` accumulated from zero, stored as ``promote(a, b)``."""
+    return _run(matmul, None, a, b, out, None, (), None, batched=False)
+
+
+WRAPPERS = (addmul, addmul_epilogue, addmul_batched, matmul)
+for _w in WRAPPERS:
+    _w.launches = 0
