@@ -6,7 +6,8 @@
 Phases, each printing one line per result; any failure exits non-zero:
 
 1. identify the card (``nvidia-smi`` name and power limit, torch, CUDA);
-2. build the kernel library from ``src/repro_torch/kernels/csrc``;
+2. build the three kernel libraries from ``src/repro_torch/kernels/csrc``,
+   one ``nvcc`` per source, all started together;
 3. hold every kernel wrapper (K1 addmul, K2 addmul_epilogue, K3
    addmul_batched, K4 matmul) against its plain PyTorch version on the
    card: main-path tiles, a ragged tile, tiny tiles, both transpose flags,
@@ -21,15 +22,31 @@ Phases, each printing one line per result; any failure exits non-zero:
    (``engine.assert_tier_close``), and the launch counters must account
    for every ADDMUL task;
 5. mixed precision: Kmeans through ``batched-cuda`` with
-   ``precision="mixed"`` against strict at 2e-2.
+   ``precision="mixed"`` against strict at 2e-2;
+6. hold K5 (flash attention) and K6 (chunkwise GLA) against their plain
+   versions on the card at the serving shapes (qwen3-8b prefill
+   attention: B=4, H=32, KV=8, S=512, D=128, bf16, causal; xlstm-1.3b
+   prefill mLSTM: B=4, S=512, H=4, dk=dv=1024, chunk 128, bf16) and at
+   small, ragged and non-causal shapes; K5 also against
+   ``scaled_dot_product_attention`` (timed as its library call, never
+   used by the port); time kernel, plain version and library call, and
+   compute each kernel's bound;
+7. LM serving at full width through ``repro_torch.launch.serve``:
+   qwen3-8b (36 layers) and xlstm-1.3b (48 layers), random weights from
+   seed 0, batch 4, prompt 512, 16 new tokens (prefill, then 15 greedy
+   decode steps).  K5 (qwen3) or K6 (xlstm) must launch once per layer
+   in the prefill, and the prefill's last-position logits must agree at
+   the bf16 tier with the same model's prefill through the plain
+   versions on the card.
 
-The JSON summary of the main path's kernels (K1-K3; K4 is off the path)
-and the ``nvidia-smi`` line come before the last line, which is the JSON
-device record.  Needs one CUDA card; exits
-non-zero, printing no result, without one.
+The JSON summary of the kernels (K1-K6; K4 is checked and timed but is
+off every path) and the ``nvidia-smi`` line come before the last line,
+which is the JSON device record.  Needs one CUDA card; exits non-zero,
+printing no result, without one.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -87,12 +104,20 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(HERE, "src"))
-    from repro_torch.core.engine import CMMEngine, assert_tier_close
+    from repro_torch.core.engine import (VALIDATE_TOL, CMMEngine,
+                                         assert_tier_close)
     from repro_torch.core.fusion import fused_flops
     from repro_torch.core.graph import TaskKind, matmul_epilogue
+    from repro_torch import kernels as K
     from repro_torch.exec.batched import group_wave
+    from repro_torch.kernels import attention as fa
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels import gla as gla_k
     from repro_torch.kernels import matmul as mm
     from repro_torch.kernels import ref
+    from repro_torch.launch import serve
+    from repro_torch.models import decode
+    from repro_torch.models.lm import LM
     from repro_torch.suite import BENCHMARKS
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -110,13 +135,14 @@ def main() -> int:
 
     # -- 2. build -------------------------------------------------------------
     t0 = time.perf_counter()
-    mm.library()
-    emit("build", seconds=round(time.perf_counter() - t0, 3),
-         library=str(mm.library_path().relative_to(HERE)),
-         nvcc_seconds=round(mm.build_seconds, 3))
-    for line in mm.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas: " + line.strip(), flush=True)
+    cuda.build_all(K.libraries())
+    emit("build", seconds=round(time.perf_counter() - t0, 3))
+    for lib in K.libraries():
+        emit("library", library=str(lib.path().relative_to(HERE)),
+             nvcc_seconds=round(lib.build_seconds, 3))
+        for line in lib.build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                print("  ptxas: " + line.strip(), flush=True)
 
     # -- 3. kernels against their plain versions ------------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -144,10 +170,15 @@ def main() -> int:
                 return ms / reps
             reps *= 2
 
-    def check(name, got, want, dtype_name) -> float:
+    def check(name, got, want, dtype_name, atol_abs=None) -> float:
+        """Elementwise ``|got - want| <= atol * max(1, max|want|) + rtol
+        |want|`` at the dtype's tier; ``atol_abs`` replaces the absolute
+        term where the tier's does not fit the function (K5 in bf16)."""
         rtol, atol = TOL[dtype_name]
         err = (got.double() - want.double()).abs()
         scale = max(1.0, float(want.double().abs().max()))
+        if atol_abs is not None:
+            atol, scale = atol_abs, 1.0
         bad = err > atol * scale + rtol * want.double().abs()
         if got.shape != want.shape or got.dtype != want.dtype or bool(
                 bad.any()):
@@ -380,19 +411,263 @@ def main() -> int:
     emit("mixed", workload="Kmeans", n=4096, tile=1024, dtype_out=str(
         mixed.dtype).split(".")[1], max_err_over_max_ref=rel, tol=2e-2)
 
+    # -- 6. K5 and K6 against their plain versions ----------------------------
+    def dn_(dtype):
+        return str(dtype).split(".")[1]
+
+    def dn(t):
+        return dn_(t.dtype)
+
+    def fa_bound_work(q, k, v, o, causal):
+        """FLOPs and bytes one attention call needs: 4 D FLOPs per (row,
+        col) pair that is not masked (the causal triangle), q/k/v read and
+        o written once."""
+        b, h, s, d = q.shape
+        sk = k.shape[2]
+        pairs = sum(min(r + 1, sk) for r in range(s)) if causal else s * sk
+        return 4 * d * pairs * b * h, nbytes(q, k, v, o)
+
+    fa_cases = [  # (label, B, H, KV, S, D, dtype, causal, main)
+        ("qwen3-8b prefill", 4, 32, 8, 512, 128, torch.bfloat16, True, True),
+        ("qwen3-8b prefill f32", 4, 32, 8, 512, 128, torch.float32, True,
+         False),
+        ("non-causal MHA", 2, 8, 8, 256, 64, torch.bfloat16, False, False),
+        ("small ragged GQA", 2, 4, 2, 100, 16, torch.float32, True, False),
+        ("small ragged non-causal", 1, 2, 1, 70, 40, torch.float32, False,
+         False),
+    ]
+    for label, b, h, kvh, s, d, dt, causal, main in fa_cases:
+        # the serving layout (B, S, H, D), seen as (B, H, S, D) views
+        q = randn(b, s, h, d, dtype=dt).transpose(1, 2)
+        k = randn(b, s, kvh, d, dtype=dt).transpose(1, 2)
+        v = randn(b, s, kvh, d, dtype=dt).transpose(1, 2)
+        got = fa.flash_attention(q, k, v, causal=causal)
+        # bf16: the two round the probabilities to bf16 against different
+        # running maxima (one rounding, 2^-8 relative, each); the output,
+        # a convex combination of v's rows, may then move by 2^-8 max|v|:
+        # the gate allows twice that, beside two ulps of each value
+        atol = 2 ** -7 * float(v.abs().max()) if dt == torch.bfloat16 \
+            else None
+        err = check(f"K5 {label}", got, ref.flash_attention(
+            q, k, v, causal=causal), dn(q), atol)
+        sdpa = torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=True)
+        check(f"K5 {label} vs scaled_dot_product_attention", got, sdpa,
+              dn(q), atol)
+        flops, moved = fa_bound_work(q, k, v, got, causal)
+        record("flash_attention", label, main, err,
+               timed(lambda: fa.flash_attention(q, k, v, causal=causal)),
+               timed(lambda: ref.flash_attention(q, k, v, causal=causal)),
+               timed(lambda: torch.nn.functional.scaled_dot_product_attention(
+                   q, k, v, is_causal=causal, enable_gqa=True)),
+               flops, moved, dn(q))
+
+    def gla_bound_work(q, k, v, la, y, st, nm, chunk):
+        """FLOPs and bytes one GLA call needs, all in f32: per chunk the
+        intra-chunk triangle (q.k and the scores times v), the state
+        update, and, after the first chunk (whose state is zero), the
+        inter-chunk product; inputs read and outputs written once."""
+        b, s, h, dk = q.shape
+        dv = v.shape[-1]
+        nc = s // chunk
+        tri = chunk * (chunk + 1) // 2
+        per_chunk = 2 * tri * (dk + dv) + 2 * chunk * dk * (dv + 1)
+        inter = 2 * chunk * dk * (dv + 1)
+        flops = b * h * (nc * per_chunk + (nc - 1) * inter)
+        return flops, nbytes(q, k, v, la, y, st, nm)
+
+    gla_cases = [  # (label, B, S, H, dk, dv, chunk, dtype, normalize,
+        #             forget-gate bias, main)
+        ("xlstm-1.3b prefill", 4, 512, 4, 1024, 1024, 128, torch.bfloat16,
+         True, 0.0, True),
+        ("xlstm-1.3b prefill, slow decay", 4, 512, 4, 1024, 1024, 128,
+         torch.bfloat16, True, 3.0, False),
+        ("small", 2, 64, 3, 8, 16, 16, torch.float32, True, 3.0, False),
+        ("ragged widths and chunk, no normaliser", 1, 96, 2, 40, 70, 48,
+         torch.float32, False, 3.0, False),
+    ]
+    for label, b, s, h, dk, dv, chunk, dt, norm, bias, main in gla_cases:
+        q = randn(b, s, h, dk, dtype=dt)
+        k = (randn(b, s, h, dk) / dk ** 0.5).to(dt)
+        v = randn(b, s, h, dv, dtype=dt)
+        # the mLSTM's forget gate, log sigmoid of a pre-activation: at
+        # bias 0 it decays as the random-weight model's does (mean log
+        # decay ~ -0.8 a step, e^-100 over a chunk), at 3 slowly
+        la = torch.nn.functional.logsigmoid(
+            randn(b, s, h, dtype=torch.float32) + bias)
+        y, (st, nm) = gla_k.gla(q, k, v, la, chunk=chunk, normalize=norm)
+        y_p, (st_p, nm_p) = ref.gla(q, k, v, la, chunk=chunk,
+                                    normalize=norm)
+        err = check(f"K6 {label} y", y, y_p, dn(y))
+        check(f"K6 {label} state", st, st_p, "float32")
+        check(f"K6 {label} norm", nm, nm_p, "float32")
+        flops, moved = gla_bound_work(q, k, v, la, y, st, nm, chunk)
+        record("gla", label, main, err,
+               timed(lambda: gla_k.gla(q, k, v, la, chunk=chunk,
+                                       normalize=norm)),
+               timed(lambda: ref.gla(q, k, v, la, chunk=chunk,
+                                     normalize=norm)),
+               None, flops, moved, "float32")
+    torch.cuda.synchronize()
+
+    # -- 7. LM serving at full width -------------------------------------------
+    def all_launches():
+        return {w.__name__: w.launches for w in K.wrappers()}
+
+    def prefill_logits(model, tokens, kernels):
+        with torch.no_grad():
+            return decode.prefill(model, tokens, tokens.shape[1],
+                                  kernels=kernels)[1]
+
+    def cast(model, dtype):
+        """A copy of ``model`` with its weights (and cache type) in dtype."""
+        out = LM(dataclasses.replace(model.cfg, dtype=dn_(dtype)), dev, dtype)
+        with torch.no_grad():
+            for a, b in zip(model.parameters(), out.parameters()):
+                b.copy_(a)
+        return out
+
+    def device_profile(fn, kernel_names):
+        """Run ``fn`` under ``torch.profiler``: device busy ms (the sum of
+        the device-side events' times: kernels and copies), ms in the
+        named kernels, kernel launches, and the host wall ms (inflated by
+        the profiler)."""
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy = named = 0.0
+        n_launch = 0
+        for e in prof.key_averages():
+            if "LaunchKernel" in e.key:
+                n_launch += e.count
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue                  # host ops: their kernels count
+            busy += e.self_device_time_total
+            if any(k in e.key for k in kernel_names):
+                named += e.self_device_time_total
+        return {"device_busy_ms": busy / 1e3, "kernel_ms": named / 1e3,
+                "launches": n_launch, "profiled_wall_ms": wall * 1e3}
+
+    serve_launches = {}
+    for arch, kernel in (("qwen3-8b", "flash_attention"), ("xlstm-1.3b",
+                                                            "gla")):
+        t0 = time.perf_counter()
+        model = serve.build_model(arch, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        cfg = model.cfg
+        tokens = serve.prompts(model, 4, 512)
+        serve.serve(model, tokens[:, :128], 2)          # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        r = serve.serve(model, tokens, 16)              # the main path
+        counts = all_launches()
+        want = {w: 0 for w in counts}
+        want[kernel] = cfg.n_layers
+        if counts != want:
+            fail(f"{arch} serving: launches {counts}, want {want}")
+        serve_launches[kernel] = counts[kernel]
+        peak = torch.cuda.max_memory_allocated()
+        finite = bool(torch.isfinite(r["prefill_logits"]).all())
+        if tuple(r["tokens"].shape) != (4, 16) or not finite:
+            fail(f"{arch} serving: tokens {tuple(r['tokens'].shape)}, "
+                 f"finite logits {finite}")
+        # where the time goes: one traced prefill and three traced decode
+        # steps (after the counts were read: these launches are not the
+        # main path's)
+        names = {"flash_attention": ("fa_fwd",),
+                 "gla": ("gla_scores", "gla_state")}[kernel]
+        pre_prof = device_profile(lambda: decode.prefill(
+            model, tokens, 512 + 4), names)
+        cache, logits = decode.prefill(model, tokens, 512 + 4)
+        tok = logits.argmax(-1, keepdim=True)
+
+        def three_steps():
+            nonlocal cache, tok
+            for _ in range(3):
+                cache, _, tok = decode.decode_step(model, cache, tok)
+
+        dec_prof = device_profile(three_steps, names)
+        del cache, logits, tok
+        emit("serve_profile", arch=arch, prefill=pre_prof,
+             prefill_idle_share=1 - pre_prof["device_busy_ms"]
+             / r["prefill_ms"],
+             decode_3_steps=dec_prof,
+             decode_idle_share=1 - dec_prof["device_busy_ms"] / 3
+             / r["decode_ms_per_step"])
+        # the reference on the card: the same weights through the plain
+        # versions, in bf16 as served and in an f32 copy
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = prefill_logits(model, tokens, kernels=False)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        got = r["prefill_logits"]
+        m32 = cast(model, torch.float32)
+        got32 = prefill_logits(m32, tokens, kernels=True)
+        plain32 = prefill_logits(m32, tokens, kernels=False)
+        del m32
+        # f32: the kernels against their plain versions through the whole
+        # model, at the f32 tier
+        try:
+            assert_tier_close(got32, plain32)
+        except AssertionError as e:
+            fail(f"{arch} f32 prefill logits, kernels vs plain versions: {e}")
+        # bf16 as served: at the bf16 tier, or within the bf16 model's own
+        # rounding error (bf16 vs f32 weights, plain versions) where that
+        # is the larger: a model that amplifies one-ulp differences moves
+        # by that much whichever way its attention is summed
+        own = float((plain.double() - plain32.double()).abs().max())
+        err = float((got.double() - plain.double()).abs().max())
+        tier = VALIDATE_TOL[torch.bfloat16] * max(
+            1.0, float(plain.double().abs().max()))
+        if err > max(tier, own):
+            fail(f"{arch} bf16 prefill logits, kernels vs plain versions: "
+                 f"max abs err {err} > max(bf16 tier {tier}, the bf16 "
+                 f"model's own error {own})")
+        emit("serve", arch=arch, layers=cfg.n_layers,
+             params=sum(t.numel() for t in model.parameters()),
+             batch=4, prompt=512, new_tokens=16, init_s=init_s,
+             prefill_ms=r["prefill_ms"],
+             decode_ms_per_token=r["decode_ms_per_step"],
+             tok_per_s=r["tok_per_s"], max_memory_gb=peak / 1e9,
+             launches=counts, prefill_plain_ms=plain_ms,
+             logits_max_abs=float(plain.double().abs().max()),
+             bf16_kernel_vs_plain_max_abs_err=err, bf16_tier_atol=tier,
+             bf16_vs_f32_plain_max_abs_err=own,
+             f32_kernel_vs_plain_max_abs_err=float(
+                 (got32.double() - plain32.double()).abs().max()),
+             sample=r["tokens"][0].tolist())
+        del model, r, plain, got, got32, plain32
+        torch.cuda.empty_cache()
+
     # -- summary ----------------------------------------------------------------
-    replaces = {"addmul": "src/repro/kernels/matmul.py:263",
-                "addmul_epilogue": "src/repro/kernels/matmul.py:181",
-                "addmul_batched": "src/repro/kernels/ops.py:94"}
+    csrc = "src/repro_torch/kernels/csrc/"
+    table = (  # kernel, TPU kernel it replaces, source, main-path launches
+        ("addmul", "src/repro/kernels/matmul.py:263", "addmul.cu",
+         path_launches["addmul"]),
+        ("addmul_epilogue", "src/repro/kernels/matmul.py:181", "addmul.cu",
+         path_launches["addmul_epilogue"]),
+        ("addmul_batched", "src/repro/kernels/ops.py:94", "addmul.cu",
+         path_launches["addmul_batched"]),
+        # the tiler emits no C-less product: K4 is off every path
+        ("matmul", "src/repro/kernels/matmul.py:229", "addmul.cu", 0),
+        ("flash_attention", "src/repro/kernels/flash_attention.py:87",
+         "flash_attention.cu", serve_launches["flash_attention"]),
+        ("gla", "src/repro/kernels/gla.py:93", "gla.cu",
+         serve_launches["gla"]),
+    )
     kernels = []
-    # matmul (K4) is checked and timed above but is not on the main path
-    # (the tiler emits no C-less product), so the path's list leaves it out
-    for k in ("addmul", "addmul_epilogue", "addmul_batched"):
+    for k, replaces, src, n in table:
         r = rows[k]
         kernels.append({
-            "name": k, "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/addmul.cu",
-            "replaces": replaces[k], "launches": path_launches[k],
+            "name": k, "route": "cuda", "source": csrc + src,
+            "replaces": replaces, "launches": n,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -2,9 +2,8 @@
 
 ``csrc/addmul.cu`` holds one templated kernel, compiled with ``nvcc`` for
 ``sm_90a`` into ``build/repro_torch/<source hash>/libcmm_kernels.so`` at
-first use and loaded with ``ctypes`` (a plain C interface: no PyTorch
-headers, so a build takes seconds).  Each wrapper below replaces one TPU
-kernel of the JAX reference:
+first use and loaded with ``ctypes`` (``kernels/cuda.py``).  Each wrapper
+below replaces one TPU kernel of the JAX reference:
 
 ========================  ==============================================
 wrapper                   replaces (``src/repro/kernels/``)
@@ -30,23 +29,11 @@ Each wrapper counts its launches in ``<wrapper>.launches``.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-import time
-from pathlib import Path
 from typing import Optional, Sequence
 
 import torch
 
-from . import ref
-
-SOURCE = Path(__file__).resolve().parent / "csrc" / "addmul.cu"
-BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from . import cuda, ref
 
 #: limits and block shape compiled into the kernel (checked at load).
 #: An epilogue program grows with the user's single-consumer elementwise
@@ -110,94 +97,32 @@ def encode_program(prog: Sequence[tuple]) -> list:
 
 # -- build and load ------------------------------------------------------
 
-_build_lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
-#: what the last build printed (``-Xptxas -v``: registers, spills) and took
-build_log = ""
-build_seconds = 0.0
+def _bind(lib: ctypes.CDLL) -> None:
+    lib.cmm_addmul.argtypes = [ctypes.POINTER(_Params), ctypes.c_void_p]
+    lib.cmm_addmul.restype = ctypes.c_int
+    lib.cmm_error_string.argtypes = [ctypes.c_int]
+    lib.cmm_error_string.restype = ctypes.c_char_p
+    lib.cmm_params_size.argtypes = []
+    lib.cmm_params_size.restype = ctypes.c_int
+    lib.cmm_config.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.cmm_config.restype = None
+    cfg = (ctypes.c_int * 5)()
+    lib.cmm_config(cfg)
+    if (lib.cmm_params_size() != ctypes.sizeof(_Params)
+            or tuple(cfg) != (MAX_EXTRAS, MAX_PROG) + BLOCK):
+        raise RuntimeError("libcmm_kernels.so does not match the "
+                           "ctypes layout in kernels/matmul.py")
 
 
-def library_path() -> Path:
-    """Where the library built from the current source and flags lives."""
-    h = hashlib.sha256(SOURCE.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_ROOT / h.hexdigest()[:16] / "libcmm_kernels.so"
-
-
-def build() -> Path:
-    """Compile ``csrc/addmul.cu`` unless this source was built already."""
-    global build_log, build_seconds
-    out = library_path()
-    if out.exists():
-        return out
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f".{os.getpid()}.{out.name}")
-    t0 = time.perf_counter()
-    res = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                         capture_output=True, text=True)
-    build_seconds = time.perf_counter() - t0
-    build_log = res.stdout + res.stderr
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{build_log}")
-    os.replace(tmp, out)
-    return out
-
-
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built at first use."""
-    global _lib
-    with _build_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            lib.cmm_addmul.argtypes = [ctypes.POINTER(_Params),
-                                       ctypes.c_void_p]
-            lib.cmm_addmul.restype = ctypes.c_int
-            lib.cmm_error_string.argtypes = [ctypes.c_int]
-            lib.cmm_error_string.restype = ctypes.c_char_p
-            lib.cmm_params_size.argtypes = []
-            lib.cmm_params_size.restype = ctypes.c_int
-            lib.cmm_config.argtypes = [ctypes.POINTER(ctypes.c_int)]
-            lib.cmm_config.restype = None
-            cfg = (ctypes.c_int * 5)()
-            lib.cmm_config(cfg)
-            if (lib.cmm_params_size() != ctypes.sizeof(_Params)
-                    or tuple(cfg) != (MAX_EXTRAS, MAX_PROG) + BLOCK):
-                raise RuntimeError("libcmm_kernels.so does not match the "
-                                   "ctypes layout in kernels/matmul.py")
-            _lib = lib
-    return _lib
+LIBRARY = cuda.CudaLibrary("addmul.cu", "libcmm_kernels", _bind)
 
 
 # -- launch ----------------------------------------------------------------
 
-_count_lock = threading.Lock()
-
-
-def _count(wrapper) -> None:
-    with _count_lock:
-        wrapper.launches += 1
-
 
 def reset_launches() -> None:
     """Set every wrapper's launch count to 0."""
-    with _count_lock:
-        for w in WRAPPERS:
-            w.launches = 0
-
-
-def _on_cpu(*ts: Optional[torch.Tensor]) -> bool:
-    """True if every tensor lies on the CPU, False if all lie on one CUDA
-    device; raises for any other mix."""
-    devs = {t.device for t in ts if t is not None}
-    if len(devs) != 1:
-        raise ValueError(f"kernel operands on several devices: {devs}")
-    dev = devs.pop()
-    if dev.type == "cpu":
-        return True
-    if dev.type != "cuda":
-        raise ValueError(f"no kernel for device {dev}")
-    return False
+    cuda.reset(WRAPPERS)
 
 
 def _operand(t: torch.Tensor) -> _Operand:
@@ -230,15 +155,12 @@ def _launch(c: Optional[torch.Tensor], a: torch.Tensor, b: torch.Tensor,
         p.E[i] = _operand(e)
     for i, (op, sa, sb, s) in enumerate(instrs):
         p.prog[i] = _Instr(op, sa, sb, 0, s)
-    lib = library()
+    lib = LIBRARY.load()
     # the launch goes to the calling thread's current device: make it the
     # operands' (executor pool threads start on device 0)
     with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        rc = lib.cmm_addmul(ctypes.byref(p), ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"cmm_addmul launch failed: CUDA error {rc} "
-                           f"({lib.cmm_error_string(rc).decode()})")
+        rc = lib.cmm_addmul(ctypes.byref(p), cuda.stream_of(a))
+    cuda.check_launch(lib.cmm_error_string, rc, "cmm_addmul")
 
 
 def _check_shapes(c, a, b, extras, batched: bool) -> None:
@@ -276,7 +198,7 @@ def _run(wrapper, c, a, b, out, prog, extras, out_dtype, batched):
     # the same limits hold on both paths, so CPU runs refuse what the
     # card would refuse
     instrs = encode_program(prog) if prog is not None else []
-    on_cpu = _on_cpu(c, a, b, out, *extras)
+    on_cpu = cuda.on_cpu(c, a, b, out, *extras)
     if c is None:
         res_dtype = torch.promote_types(a.dtype, b.dtype)
     elif prog is None:
@@ -298,7 +220,7 @@ def _run(wrapper, c, a, b, out, prog, extras, out_dtype, batched):
             out[None]
         extras = [e[None] for e in extras]
     _launch(c, a, b, out, instrs, extras)
-    _count(wrapper)
+    cuda.count(wrapper)
     return out[0] if not batched else out
 
 

@@ -244,3 +244,13 @@ def test_port_imports_neither_jax_nor_the_reference(path):
     for mod in _imports(ROOT / path):
         top = mod.split(".")[0]
         assert top not in ("jax", "jaxlib", "repro"), f"{path} imports {mod}"
+
+
+def test_import_guard_covers_the_lm_slice():
+    """The guard above walks every module of the port, the LM serving
+    slice's subpackages included."""
+    guarded = {p.relative_to(ROOT / "src" / "repro_torch").parts[0]
+               for p in (ROOT / "src" / "repro_torch").rglob("*.py")}
+    assert {"configs", "models", "launch", "kernels"} <= guarded
+    for name in ("attention.py", "gla.py", "cuda.py"):
+        assert (ROOT / "src" / "repro_torch" / "kernels" / name).exists()
