@@ -13,34 +13,47 @@ Phases, each printing one line per result; any failure exits non-zero:
    card: main-path tiles, a ragged tile, tiny tiles, both transpose flags,
    f64/f32/bf16, every epilogue instruction, mixed-dtype extras; K3 must
    equal K1/K2 per group bitwise; time kernel, plain version and the
-   library call, and compute each kernel's bound;
+   library call, and compute each kernel's bound.  Integer products
+   (int64, int32, int64 past its range) must equal the plain version
+   exactly; torch has no CUDA integer matmul, so that runs on the host;
 4. the main path: all eight paper workloads at n=4096, tile 1024, f64
    through ``CMMEngine.run`` with the ``kernel`` and ``batched-cuda``
    executors, then Markov and Synth at n=8192, tile 2048, in f64 and f32.
    ``kernel`` must equal ``batched-cuda`` bitwise, the result must pass
    the check ``run(validate=True)`` makes against ``eager()`` on the card
    (``engine.assert_tier_close``), and the launch counters must account
-   for every ADDMUL task;
+   for every ADDMUL task.  Then the probes of long epilogues (``A@B + R1
+   + ... + R17``, ``A@B`` under 70 ``sin``: past the kernel's 16 extras and
+   64 instructions) and of integer products (``I@J``, ``I@J - K``,
+   ``sqrt(I@J + K) * 0.5``) through all four executors: ``kernel`` ≡
+   ``batched-cuda`` bitwise, each result against ``eager()`` on the card
+   at the tier, the integer ones exactly and against the host's too, and
+   the launch counters showing the kernels ran them;
 5. mixed precision: Kmeans through ``batched-cuda`` with
    ``precision="mixed"`` against strict at 2e-2;
 6. hold K5 (flash attention) and K6 (chunkwise GLA) against their plain
    versions on the card at the serving shapes (qwen3-8b prefill
    attention: B=4, H=32, KV=8, S=512, D=128, bf16, causal; xlstm-1.3b
    prefill mLSTM: B=4, S=512, H=4, dk=dv=1024, chunk 128, bf16) and at
-   small, ragged and non-causal shapes; K5 also against
-   ``scaled_dot_product_attention`` (timed as its library call, never
-   used by the port); time kernel, plain version and library call, and
-   compute each kernel's bound;
+   small, ragged and non-causal shapes; K5's tensor-core kernel at D=64
+   and 128, ragged S=100 and 70 with D=16 and 40, non-causal with Sk != S,
+   GQA ratios 1 and 4, (B, S, H, D) views and contiguous (B, H, S, D),
+   each call launching the variant ``choose_variant`` names; its FMA kernel
+   at the f32 cases; K5 also against ``scaled_dot_product_attention``
+   (timed as its library call, never used by the port); time kernel,
+   plain version and library call (at the bf16 serving shape the FMA
+   kernel on the same inputs too), and compute each kernel's bound;
 7. LM serving at full width through ``repro_torch.launch.serve``:
    qwen3-8b (36 layers) and xlstm-1.3b (48 layers), random weights from
    seed 0, batch 4, prompt 512, 16 new tokens (prefill, then 15 greedy
-   decode steps).  K5 (qwen3) or K6 (xlstm) must launch once per layer
-   in the prefill, and the prefill's last-position logits must agree at
-   the bf16 tier with the same model's prefill through the plain
-   versions on the card.
+   decode steps).  K5's tensor-core kernel (qwen3) or K6 (xlstm) must
+   launch once per layer in the prefill, and the prefill's last-position
+   logits must agree at the bf16 tier with the same model's prefill
+   through the plain versions on the card.
 
-The JSON summary of the kernels (K1-K6; K4 is checked and timed but is
-off every path) and the ``nvidia-smi`` line come before the last line,
+The JSON summary of the kernels (K1-K6, K5 as its two variants; K4 is
+checked and timed but is off every path, the f32 K5 kernel is off the bf16
+serving path) and the ``nvidia-smi`` line come before the last line,
 which is the JSON device record.  Needs one CUDA card; exits non-zero,
 printing no result, without one.
 """
@@ -104,6 +117,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(HERE, "src"))
+    from repro_torch.core import ClusteredMatrix as CM
     from repro_torch.core.engine import (VALIDATE_TOL, CMMEngine,
                                          assert_tier_close)
     from repro_torch.core.fusion import fused_flops
@@ -141,7 +155,8 @@ def main() -> int:
         emit("library", library=str(lib.path().relative_to(HERE)),
              nvcc_seconds=round(lib.build_seconds, 3))
         for line in lib.build_log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "entry function" in line or "registers" in line \
+                    or "spill" in line:
                 print("  ptxas: " + line.strip(), flush=True)
 
     # -- 3. kernels against their plain versions ------------------------------
@@ -198,16 +213,16 @@ def main() -> int:
     rows = {}     # kernel -> row of the JSON summary (main-path shape)
 
     def record(kernel, label, main, err, ms, plain_ms, library_ms, flops,
-               moved, acc_name):
+               moved, acc_name, **extra):
         b_ms, b_by, peak = bound(flops, moved, acc_name)
         emit("kernel", kernel=kernel, case=label, max_abs_err=err, ms=ms,
              plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
-             bound_by=b_by, peak=peak, share_of_bound=b_ms / ms)
+             bound_by=b_by, peak=peak, share_of_bound=b_ms / ms, **extra)
         if main:
             rows[kernel] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                 bound_ms=b_ms, bound_by=b_by,
                                 library_ms=library_ms, case=label,
-                                peak=peak)
+                                peak=peak, **extra)
 
     def operands(m, k, n, dt, ta=False, tb=False):
         a = randn(k, m, dtype=dt).T if ta else randn(m, k, dtype=dt)
@@ -323,6 +338,33 @@ def main() -> int:
                timed(lambda: ref.addmul(c3, a3, b3)),
                timed(lambda: torch.baddbmm(c3, a3, b3)), 2 * G * m ** 3,
                nbytes(a3, b3, c3, c3), acc_name(a3, b3, c3))
+
+    # integer products: exact int64 accumulation, wrapping as NumPy's does
+    # (a sum modulo 2^64 does not depend on its order, so even the wrap
+    # case is exact); the plain version runs on the host
+    for label, m, k, n, dt, hi, ta in (
+            ("int64 1024", 1024, 1024, 1024, torch.int64, 1000, False),
+            ("ragged int64 1000 A^T", 1000, 1000, 1000, torch.int64, 1000,
+             True),
+            ("tiny int32 16", 16, 16, 16, torch.int32, 1000, False),
+            ("tiny int64 16 past 2^63", 16, 16, 16, torch.int64, 2 ** 40,
+             False)):
+        def randint(*shape):
+            return torch.randint(-hi, hi, shape, device=dev, generator=gen,
+                                 dtype=dt)
+        a = randint(k, m).T if ta else randint(m, k)
+        b, c = randint(k, n), randint(m, n)
+        c3, a3, b3 = randint(3, m, n), randint(3, m, k), randint(3, k, n)
+        host = [t.cpu() for t in (c, a, b)]
+        host3 = [t.cpu() for t in (c3, a3, b3)]
+        for name, got, want in (
+                ("K1", mm.addmul(c, a, b), ref.addmul(*host)),
+                ("K4", mm.matmul(a, b), ref.matmul(*host[1:])),
+                ("K3", mm.addmul_batched(c3, a3, b3), ref.addmul(*host3))):
+            if got.dtype != want.dtype or not torch.equal(got.cpu(), want):
+                fail(f"{name} {label}: not equal to the plain version")
+        emit("kernel_int", case=label, dtype=str(dt).split(".")[1],
+             exact=["K1", "K4", "K3"])
     torch.cuda.synchronize()
 
     # -- 4. the main path ------------------------------------------------------
@@ -395,6 +437,84 @@ def main() -> int:
         if path_launches[k] == 0:
             fail(f"kernel {k} was never launched on the main path")
 
+    # probes: epilogues past the kernel's limits (the kernel runs a head of
+    # the program, eval_fused the rest) and integer products (exact; torch
+    # has no CUDA integer matmul, so every executor runs them in K1/K3)
+    def leaf(t):
+        return CM.from_array(t)
+
+    def randint(lo, hi, n):
+        return torch.randint(lo, hi, (n, n), device=dev, generator=gen)
+
+    def probe_exprs():
+        n = 2048
+        a, b = leaf(randn(n, n)), leaf(randn(n, n))
+        extras17 = a @ b
+        for _ in range(17):
+            extras17 = extras17 + leaf(randn(n, n))
+        sin70 = a @ b
+        for _ in range(70):
+            sin70 = sin70.ewise("sin")
+        yield "17 extras", 2048, 512, extras17
+        yield "70 sin", 2048, 512, sin70
+        n = 1024
+        i, j = leaf(randint(3000, 12000, n)), leaf(randint(3000, 12000, n))
+        k = leaf(randint(-50, 50, n))
+        yield "I@J", n, 256, i @ j
+        yield "I@J-K", n, 256, i @ j - k
+        yield "sqrt(I@J+K)*0.5", n, 256, (i @ j + k).ewise("sqrt") * 0.5
+
+    for name, n, tile, expr in probe_exprs():
+        engine = CMMEngine()
+        plan = engine.plan(expr, tile=tile)
+        n_addmul, n_epi, n_groups = addmul_counts(plan)
+        integer = name.startswith(("I", "sqrt(I"))
+        oracle = expr.eager(engine.device)
+        out = {}
+        for ex in ("local", "batched", "kernel", "batched-cuda"):
+            before = launches()
+            out[ex] = engine.run(expr, executor=ex, plan=plan)
+            torch.cuda.synchronize()
+            after = launches()
+            delta = {k: after[k] - before[k] for k in after}
+            want = dict.fromkeys(delta, 0)
+            if ex in ("batched", "batched-cuda") and (
+                    integer or ex == "batched-cuda"):
+                want["addmul_batched"] = n_groups
+            elif integer:
+                want["addmul"] = n_addmul          # no epilogue in the kernel
+            elif ex == "kernel":
+                want.update(addmul=n_addmul - n_epi, addmul_epilogue=n_epi)
+            if delta != want:
+                fail(f"probe {name} {ex}: launches {delta}, want {want}")
+            try:
+                if integer and out[ex].dtype == torch.int64:
+                    if not torch.equal(out[ex], oracle):
+                        raise AssertionError("not equal")
+                else:
+                    assert_tier_close(out[ex], oracle)
+            except AssertionError as e:
+                fail(f"probe {name} {ex}: result vs eager(): {e}")
+        if not torch.equal(out["kernel"], out["batched-cuda"]):
+            fail(f"probe {name}: kernel and batched-cuda differ")
+        host_equal = None
+        if integer:
+            host = expr.eager("cpu")
+            host_equal = out["kernel"].dtype == host.dtype and (
+                torch.equal(out["kernel"].cpu(), host)
+                if host.dtype == torch.int64 else None)
+            if host_equal is False:
+                fail(f"probe {name}: differs from the host's int64 result")
+            if host_equal is None:
+                assert_tier_close(out["kernel"].cpu(), host)
+        emit("probe", expr=name, n=n, tile=tile,
+             dtype=str(out["kernel"].dtype).split(".")[1],
+             kernel_eq_batched_cuda=True, addmul_tasks=n_addmul,
+             epilogue_tasks=n_epi, equal_to_host=host_equal,
+             max_abs_err_vs_eager=float((out["kernel"].double()
+                                         - oracle.double()).abs().max()))
+        del out, oracle
+
     # -- 5. mixed precision -----------------------------------------------------
     engine = CMMEngine()
     expr = BENCHMARKS["Kmeans"](4096)
@@ -427,40 +547,78 @@ def main() -> int:
         pairs = sum(min(r + 1, sk) for r in range(s)) if causal else s * sk
         return 4 * d * pairs * b * h, nbytes(q, k, v, o)
 
-    fa_cases = [  # (label, B, H, KV, S, D, dtype, causal, main)
-        ("qwen3-8b prefill", 4, 32, 8, 512, 128, torch.bfloat16, True, True),
-        ("qwen3-8b prefill f32", 4, 32, 8, 512, 128, torch.float32, True,
+    bf16, f32 = torch.bfloat16, torch.float32
+    fa_cases = [  # (label, B, H, KV, S, Sk, D, dtype, causal, layout, main)
+        ("qwen3-8b prefill", 4, 32, 8, 512, 512, 128, bf16, True, "BSHD",
+         True),
+        ("D=64 GQA 4", 2, 16, 4, 512, 512, 64, bf16, True, "BSHD", False),
+        ("GQA 1 D=128", 2, 8, 8, 256, 256, 128, bf16, True, "BSHD", False),
+        ("ragged S=100 D=16", 2, 4, 2, 100, 100, 16, bf16, True, "BSHD",
          False),
-        ("non-causal MHA", 2, 8, 8, 256, 64, torch.bfloat16, False, False),
-        ("small ragged GQA", 2, 4, 2, 100, 16, torch.float32, True, False),
-        ("small ragged non-causal", 1, 2, 1, 70, 40, torch.float32, False,
+        ("ragged S=70 D=40 non-causal", 1, 2, 1, 70, 70, 40, bf16, False,
+         "BSHD", False),
+        ("non-causal Sk=384 S=256", 2, 8, 2, 256, 384, 128, bf16, False,
+         "BSHD", False),
+        ("causal Sk=70 S=130", 1, 4, 4, 130, 70, 64, bf16, True, "BSHD",
          False),
+        ("contiguous (B,H,S,D)", 2, 8, 2, 200, 200, 128, bf16, True, "BHSD",
+         False),
+        ("non-causal MHA", 2, 8, 8, 256, 256, 64, bf16, False, "BSHD",
+         False),
+        ("qwen3-8b prefill f32", 4, 32, 8, 512, 512, 128, f32, True, "BSHD",
+         True),
+        ("small ragged GQA f32", 2, 4, 2, 100, 100, 16, f32, True, "BSHD",
+         False),
+        ("small ragged non-causal f32", 1, 2, 1, 70, 70, 40, f32, False,
+         "BSHD", False),
     ]
-    for label, b, h, kvh, s, d, dt, causal, main in fa_cases:
-        # the serving layout (B, S, H, D), seen as (B, H, S, D) views
-        q = randn(b, s, h, d, dtype=dt).transpose(1, 2)
-        k = randn(b, s, kvh, d, dtype=dt).transpose(1, 2)
-        v = randn(b, s, kvh, d, dtype=dt).transpose(1, 2)
+    fa_variants = {"mma": fa.flash_attention_mma,
+                   "fma": fa.flash_attention_fma}
+    for label, b, h, kvh, s, sk, d, dt, causal, layout, main in fa_cases:
+        def qkv(heads, length):
+            if layout == "BSHD":    # the serving layout, seen as views
+                return randn(b, length, heads, d, dtype=dt).transpose(1, 2)
+            return randn(b, heads, length, d, dtype=dt)
+        q, k, v = qkv(h, s), qkv(kvh, sk), qkv(kvh, sk)
+        variant = fa.choose_variant(dt, d, fa.rows_aligned(q, k, v))
+        if variant != ("mma" if dt == bf16 else "fma"):
+            fail(f"K5 {label}: the rule chose {variant}")
+        wrapper = fa_variants[variant]
+        before = wrapper.launches
         got = fa.flash_attention(q, k, v, causal=causal)
+        if wrapper.launches != before + 1:
+            fail(f"K5 {label}: flash_attention did not launch {variant}")
         # bf16: the two round the probabilities to bf16 against different
         # running maxima (one rounding, 2^-8 relative, each); the output,
         # a convex combination of v's rows, may then move by 2^-8 max|v|:
         # the gate allows twice that, beside two ulps of each value
-        atol = 2 ** -7 * float(v.abs().max()) if dt == torch.bfloat16 \
-            else None
-        err = check(f"K5 {label}", got, ref.flash_attention(
+        atol = 2 ** -7 * float(v.abs().max()) if dt == bf16 else None
+        err = check(f"K5 {variant} {label}", got, ref.flash_attention(
             q, k, v, causal=causal), dn(q), atol)
         sdpa = torch.nn.functional.scaled_dot_product_attention(
             q, k, v, is_causal=causal, enable_gqa=True)
-        check(f"K5 {label} vs scaled_dot_product_attention", got, sdpa,
-              dn(q), atol)
+        check(f"K5 {variant} {label} vs scaled_dot_product_attention", got,
+              sdpa, dn(q), atol)
+        extra = {}
+        if main and variant == "mma":
+            # the FMA kernel on the same inputs, timed in this run
+            err_fma = check(f"K5 fma {label}", fa.flash_attention_fma(
+                q, k, v, causal=causal), ref.flash_attention(
+                q, k, v, causal=causal), dn(q), atol)
+            extra = dict(fma_ms_same_inputs=timed(
+                lambda: fa.flash_attention_fma(q, k, v, causal=causal)),
+                fma_max_abs_err=err_fma)
         flops, moved = fa_bound_work(q, k, v, got, causal)
-        record("flash_attention", label, main, err,
-               timed(lambda: fa.flash_attention(q, k, v, causal=causal)),
+        record(f"flash_attention_{variant}", label, main, err,
+               timed(lambda: wrapper(q, k, v, causal=causal)),
                timed(lambda: ref.flash_attention(q, k, v, causal=causal)),
                timed(lambda: torch.nn.functional.scaled_dot_product_attention(
                    q, k, v, is_causal=causal, enable_gqa=True)),
-               flops, moved, dn(q))
+               flops, moved, dn(q), **extra)
+    if rows["flash_attention_mma"]["ms"] >= rows["flash_attention_mma"][
+            "fma_ms_same_inputs"]:
+        print("NOTE: the tensor-core K5 was not faster than the FMA kernel "
+              "on the same inputs in this run", flush=True)
 
     def gla_bound_work(q, k, v, la, y, st, nm, chunk):
         """FLOPs and bytes one GLA call needs, all in f32: per chunk the
@@ -554,8 +712,8 @@ def main() -> int:
                 "launches": n_launch, "profiled_wall_ms": wall * 1e3}
 
     serve_launches = {}
-    for arch, kernel in (("qwen3-8b", "flash_attention"), ("xlstm-1.3b",
-                                                            "gla")):
+    for arch, kernel in (("qwen3-8b", "flash_attention_mma"),
+                         ("xlstm-1.3b", "gla")):
         t0 = time.perf_counter()
         model = serve.build_model(arch, device=dev)
         torch.cuda.synchronize()
@@ -580,7 +738,7 @@ def main() -> int:
         # where the time goes: one traced prefill and three traced decode
         # steps (after the counts were read: these launches are not the
         # main path's)
-        names = {"flash_attention": ("fa_fwd",),
+        names = {"flash_attention_mma": ("fa_mma",),
                  "gla": ("gla_scores", "gla_state")}[kernel]
         pre_prof = device_profile(lambda: decode.prefill(
             model, tokens, 512 + 4), names)
@@ -657,8 +815,12 @@ def main() -> int:
          path_launches["addmul_batched"]),
         # the tiler emits no C-less product: K4 is off every path
         ("matmul", "src/repro/kernels/matmul.py:229", "addmul.cu", 0),
-        ("flash_attention", "src/repro/kernels/flash_attention.py:87",
-         "flash_attention.cu", serve_launches["flash_attention"]),
+        ("flash_attention_mma", "src/repro/kernels/flash_attention.py:87",
+         "flash_attention.cu", serve_launches["flash_attention_mma"]),
+        # f32 (and layouts the 16-byte copies cannot read) only: the bf16
+        # serving path never runs it
+        ("flash_attention_fma", "src/repro/kernels/flash_attention.py:87",
+         "flash_attention.cu", 0),
         ("gla", "src/repro/kernels/gla.py:93", "gla.cu",
          serve_launches["gla"]),
     )

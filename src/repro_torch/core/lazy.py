@@ -43,9 +43,37 @@ class Op(enum.Enum):
                              # (payload: instruction tuple, see core.fusion)
 
 
+#: the float type NumPy's float ufuncs (sin, sqrt, ...) compute an integer
+#: or boolean input in: the smallest that holds every value exactly
+_UFUNC_FLOAT = {torch.bool: torch.float16, torch.int8: torch.float16,
+                torch.uint8: torch.float16, torch.int16: torch.float32,
+                torch.uint16: torch.float32}
+
+
+def _ufunc_input(x: torch.Tensor) -> torch.Tensor:
+    """``x`` cast as NumPy casts it for a float ufunc; torch would compute
+    an integer input in its default f32 instead."""
+    if x.is_floating_point() or x.is_complex():
+        return x
+    return x.to(_UFUNC_FLOAT.get(x.dtype, torch.float64))
+
+
+def _scalar_input(x: torch.Tensor) -> torch.Tensor:
+    """``x`` cast as NumPy casts it for an op with a Python float: integer
+    and boolean arrays become f64 (torch would give f32)."""
+    if x.is_floating_point() or x.is_complex():
+        return x
+    return x.to(torch.float64)
+
+
+def _float_ufunc(fn):
+    return lambda x: fn(_ufunc_input(x))
+
+
 def _relu(x: torch.Tensor) -> torch.Tensor:
-    # np.maximum(x, 0.0): NaN propagates (clamp_min keeps NaN)
-    return torch.clamp_min(x, 0.0)
+    # np.maximum(x, 0.0): NaN propagates (clamp_min keeps NaN); the Python
+    # float makes an integer input f64
+    return torch.clamp_min(_scalar_input(x), 0.0)
 
 
 def _sign(x: torch.Tensor) -> torch.Tensor:
@@ -53,15 +81,17 @@ def _sign(x: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isnan(x), x, torch.sign(x))
 
 
-#: unary elementwise functions supported by Op.EWISE (Table 1 row 3)
+#: unary elementwise functions supported by Op.EWISE (Table 1 row 3), with
+#: NumPy's result types: abs and sign keep an integer type, the others
+#: compute integers in floating point
 EWISE_FNS = {
-    "sin": torch.sin,
-    "cos": torch.cos,
-    "exp": torch.exp,
-    "tanh": torch.tanh,
+    "sin": _float_ufunc(torch.sin),
+    "cos": _float_ufunc(torch.cos),
+    "exp": _float_ufunc(torch.exp),
+    "tanh": _float_ufunc(torch.tanh),
     "abs": torch.abs,
     "relu": _relu,
-    "sqrt": torch.sqrt,
+    "sqrt": _float_ufunc(torch.sqrt),
     "sign": _sign,
 }
 
@@ -362,6 +392,9 @@ def materialize_leaf(node: ClusteredMatrix, device="cpu") -> torch.Tensor:
 
 
 def apply_scale(kind: str, x: torch.Tensor, s: float) -> torch.Tensor:
+    """``x (op) s`` for a Python float ``s``, in NumPy's result type (an
+    integer ``x`` gives f64)."""
+    x = _scalar_input(x)
     if kind == "add":
         return x + s
     if kind == "sub":
@@ -377,9 +410,20 @@ def apply_scale(kind: str, x: torch.Tensor, s: float) -> torch.Tensor:
     raise ValueError(f"unknown scalar op {kind}")
 
 
+def card_integer_product(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """True for an integer product on a CUDA device.  torch has no CUDA
+    integer matmul, so such a product runs in the port's own ADDMUL kernel
+    (exact int64 accumulation, as NumPy's)."""
+    return (a.device.type == "cuda"
+            and not torch.promote_types(a.dtype, b.dtype).is_floating_point)
+
+
 def promoted_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` with NumPy's dtype promotion (torch.matmul needs equal
-    dtypes)."""
+    dtypes); a 2-D integer product on the card runs in the port's K4."""
+    if card_integer_product(a, b):
+        from ..kernels import matmul as mm   # local import: kernels use core
+        return mm.matmul(a, b)
     dt = torch.promote_types(a.dtype, b.dtype)
     return torch.matmul(a.to(dt), b.to(dt))
 

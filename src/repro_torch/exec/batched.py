@@ -23,9 +23,13 @@ scratch copy.  Slabs are reference-counted: a slab is dropped when the
 last reader of its last live tile finishes.
 
 Numerics: ``backend="cuda"`` runs every ADDMUL tile through the same kernel
-with the same block shape as the per-task ``kernel`` executor, so the two
-agree bitwise.  ``precision="mixed"`` casts A and B to f32, accumulates in
-f32 and stores epilogue outputs as bf16 (validated at 2e-2).
+with the same block shape as the per-task ``kernel`` executor, and cuts a
+long epilogue the same way (``kernels/ops.addmul_fused``), so the two agree
+bitwise.  An integer product on a CUDA device takes the kernel path with
+either backend: torch has no CUDA integer matmul, and the kernel
+accumulates integers exactly in int64.  ``precision="mixed"`` casts A and
+B to f32, accumulates in f32 and stores epilogue outputs as bf16
+(validated at 2e-2).
 
 ``predict_wave_makespan`` is the executor-strategy leg of the paper's
 simulation-driven selection: the engine compares it against the per-task
@@ -40,7 +44,8 @@ import torch
 from ..core.fusion import eval_fused
 from ..core.graph import (Task, TaskGraph, TaskKind, TileRef,
                           matmul_epilogue, matmul_flags)
-from ..core.lazy import EWISE_FNS, Op, apply_scale, leaf_slice, promoted_matmul
+from ..core.lazy import (EWISE_FNS, Op, apply_scale, card_integer_product,
+                         leaf_slice, promoted_matmul)
 from ..core.machine import ClusterSpec
 from ..core.timemodel import CostCache, TimeModel
 from ..core.tiling import assemble, tile_slices
@@ -316,15 +321,15 @@ class WaveExecutor:
         outs = [t.out for t in tasks]
         crun = arena.contiguous_run(outs) if len(outs) > 1 else None
 
-        if self.backend == "cuda":
+        if self.backend == "cuda" or card_integer_product(a3, b3):
             from ..kernels import ops as kops
             c3 = crun if crun is not None else \
                 torch.stack([buffers[t.out] for t in tasks])
             if epi is not None:
                 # true fused kernel: accumulator -> epilogue -> store
-                slab = kops.addmul_batched(
+                slab = kops.addmul_fused(
                     c3, a3, b3, epilogue=epi, extras=stacks,
-                    out_dtype=self._epilogue_store_dtype())
+                    out_dtype=self._epilogue_store_dtype(), batched=True)
                 self._bind(tasks, slab, buffers, arena)
             elif crun is not None:
                 kops.addmul_batched(c3, a3, b3, out=crun)

@@ -16,7 +16,11 @@ decided, the data dependencies enforced here must reproduce
 
 ``use_kernel=True`` routes ADDMUL tiles through the hand-written CUDA
 kernel (``kernels/ops.addmul``: K1, or K2 when the task carries an
-epilogue); otherwise they run as ``torch.matmul`` plus ``eval_fused``.
+epilogue; ``ops.addmul_fused`` runs the part of a long epilogue the kernel
+cannot hold in ``eval_fused``); otherwise they run as ``torch.matmul`` plus
+``eval_fused``.  An integer product on a CUDA device takes the kernel path
+in either mode: torch has no CUDA integer matmul, and the kernel
+accumulates integers exactly in int64.
 
 On a CUDA device the pool threads only enqueue work: every launch goes to
 the device's current stream in the order the dependencies release it, so
@@ -34,7 +38,8 @@ import torch
 from ..core.fusion import eval_fused
 from ..core.graph import (Task, TaskGraph, TaskKind, TileRef,
                           matmul_epilogue, matmul_flags)
-from ..core.lazy import EWISE_FNS, apply_scale, leaf_slice, promoted_matmul
+from ..core.lazy import (EWISE_FNS, apply_scale, card_integer_product,
+                         leaf_slice, promoted_matmul)
 from ..core.tiling import assemble, tile_slices
 from ..device import resolve_device
 from ..runtime.telemetry import Tracer
@@ -80,8 +85,7 @@ class LocalExecutor:
         #: old allocation's bytes
         owned: Dict[TileRef, int] = {}
 
-        if self.use_kernel:
-            from ..kernels import ops as kops
+        from ..kernels import ops as kops
 
         def run_task(t: Task):
             if t.kind is TaskKind.CALLOC:
@@ -105,12 +109,14 @@ class LocalExecutor:
                 b = b.T if tb else b
                 c = buffers[t.out]
                 extras = [buffers[r] for r in t.ins[2:]]
-                if self.use_kernel:
+                if self.use_kernel or card_integer_product(a, b):
                     # chain steps accumulate into C in place; the epilogued
                     # tail stores its own (possibly promoted) tile
-                    buffers[t.out] = kops.addmul(
-                        c, a, b, epilogue=epi, extras=extras,
-                        out=None if epi is not None else c)
+                    if epi is None:
+                        kops.addmul(c, a, b, out=c)
+                    else:
+                        buffers[t.out] = kops.addmul_fused(
+                            c, a, b, epilogue=epi, extras=extras)
                 else:
                     c += promoted_matmul(a, b)
                     if epi is not None:

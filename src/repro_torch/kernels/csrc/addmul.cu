@@ -16,11 +16,16 @@
 // Types: f32 and bf16 operands accumulate in f32 with plain FMA (no TF32,
 // no tensor-core rounding of f32 operands); any f64 operand makes the whole
 // product accumulate in f64.  The epilogue runs in f64 when the accumulator
-// or any extra operand is f64, else in f32.  Ragged edges are masked in the
-// kernel; operands come with explicit (group, row, col) element strides, so
-// transposed operands need no copy.  No atomics and no split-k: the
-// summation order depends on K alone, so a group member of a G > 1 launch
-// is bitwise equal to the same tile launched alone.
+// or any extra operand is f64, else in f32.  Integer products (int32 and
+// int64 operands, no float among them) accumulate exactly in int64 and wrap
+// around as NumPy's int64 does; they take no epilogue program, because
+// NumPy types each instruction of one (an integer add stays an integer, a
+// sin is f64), and the executors run it in the FUSED pass instead.
+// Ragged edges are masked in the kernel; operands come with explicit
+// (group, row, col) element strides, so transposed operands need no copy.
+// No atomics and no split-k: the summation order depends on K alone, so a
+// group member of a G > 1 launch is bitwise equal to the same tile
+// launched alone.
 //
 // The epilogue is the FUSED tile program of core/fusion.py, passed as an
 // instruction array (opcode, operand slots, scalar) that each thread
@@ -29,6 +34,8 @@
 // Plain C interface, loaded with ctypes by kernels/matmul.py.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+
+#include <type_traits>
 
 #define CMM_MAX_EXTRAS 16
 #define CMM_MAX_PROG 64
@@ -42,7 +49,7 @@ constexpr int NT = 256;       // threads per block (16 x 16)
 constexpr int TM = BM / 16;   // output rows per thread
 constexpr int TN = BN / 16;   // output cols per thread
 
-enum { DT_F32 = 0, DT_F64 = 1, DT_BF16 = 2 };
+enum { DT_F32 = 0, DT_F64 = 1, DT_BF16 = 2, DT_I32 = 3, DT_I64 = 4 };
 
 enum {
   OP_IN = 0,
@@ -69,7 +76,7 @@ struct CmmInstr {
 struct CmmParams {
   int G, M, N, K;
   int has_c, n_extras, n_prog, acc_f64;
-  int epi_f64, pad0, pad1, pad2;
+  int epi_f64, acc_int, pad1, pad2;
   CmmOperand A, B, C, O;
   CmmOperand E[CMM_MAX_EXTRAS];
   CmmInstr prog[CMM_MAX_PROG];
@@ -82,6 +89,8 @@ __device__ __forceinline__ T ld(const CmmOperand o, long long g, int r, int c) {
   const long long off = g * o.sg + (long long)r * o.sr + (long long)c * o.sc;
   if (o.dtype == DT_F64) return (T)static_cast<const double*>(o.ptr)[off];
   if (o.dtype == DT_F32) return (T)static_cast<const float*>(o.ptr)[off];
+  if (o.dtype == DT_I64) return (T)static_cast<const long long*>(o.ptr)[off];
+  if (o.dtype == DT_I32) return (T)static_cast<const int*>(o.ptr)[off];
   return (T)__bfloat162float(static_cast<const __nv_bfloat16*>(o.ptr)[off]);
 }
 
@@ -94,6 +103,10 @@ __device__ __forceinline__ void st(const CmmOperand o, long long g, int r, int c
     static_cast<double*>(p)[off] = (double)v;
   } else if (o.dtype == DT_F32) {
     static_cast<float*>(p)[off] = (float)v;
+  } else if (o.dtype == DT_I64) {
+    static_cast<long long*>(p)[off] = (long long)v;
+  } else if (o.dtype == DT_I32) {
+    static_cast<int*>(p)[off] = (int)v;   // the low 32 bits, as NumPy wraps
   } else {
     static_cast<__nv_bfloat16*>(p)[off] = __float2bfloat16_rn((float)v);
   }
@@ -101,6 +114,12 @@ __device__ __forceinline__ void st(const CmmOperand o, long long g, int r, int c
 
 __device__ __forceinline__ float m_fma(float a, float b, float c) { return fmaf(a, b, c); }
 __device__ __forceinline__ double m_fma(double a, double b, double c) { return fma(a, b, c); }
+// int64 multiply-add modulo 2^64 (NumPy's wrap-around; unsigned: no UB)
+__device__ __forceinline__ long long m_fma(long long a, long long b,
+                                           long long c) {
+  return (long long)((unsigned long long)a * (unsigned long long)b +
+                     (unsigned long long)c);
+}
 __device__ __forceinline__ float m_sin(float x) { return sinf(x); }
 __device__ __forceinline__ double m_sin(double x) { return sin(x); }
 __device__ __forceinline__ float m_cos(float x) { return cosf(x); }
@@ -124,6 +143,50 @@ __device__ __forceinline__ T m_relu(T x) {
 template <typename T>
 __device__ __forceinline__ T m_sign(T x) {
   return x > T(0) ? T(1) : (x < T(0) ? T(-1) : (x == T(0) ? T(0) : x));
+}
+
+// The epilogue program at one output element; x0 is the accumulator.
+// Integer products carry no program (cmm_addmul refuses one).
+template <typename Epi>
+__device__ __forceinline__ Epi run_epilogue(const CmmParams& p, long long g,
+                                            int r, int c, Epi x0) {
+  if constexpr (std::is_integral<Epi>::value) {
+    return x0;
+  } else {
+    if (p.n_prog == 0) return x0;
+    Epi vals[CMM_MAX_PROG];
+    for (int t = 0; t < p.n_prog; ++t) {
+      const int op = p.prog[t].op, sa = p.prog[t].a, sb = p.prog[t].b;
+      const Epi s = (Epi)p.prog[t].s;
+      Epi y;
+      if (op == OP_IN) {
+        y = sa == 0 ? x0 : ld<Epi>(p.E[sa - 1], g, r, c);
+      } else {
+        const Epi x = vals[sa];
+        switch (op) {
+          case OP_SIN: y = m_sin(x); break;
+          case OP_COS: y = m_cos(x); break;
+          case OP_EXP: y = m_exp(x); break;
+          case OP_TANH: y = m_tanh(x); break;
+          case OP_ABS: y = m_abs(x); break;
+          case OP_RELU: y = m_relu(x); break;
+          case OP_SQRT: y = m_sqrt(x); break;
+          case OP_SIGN: y = m_sign(x); break;
+          case OP_S_ADD: y = x + s; break;
+          case OP_S_SUB: y = x - s; break;
+          case OP_S_RSUB: y = s - x; break;
+          case OP_S_MUL: y = x * s; break;
+          case OP_S_DIV: y = x / s; break;
+          case OP_S_RDIV: y = s / x; break;
+          case OP_ADD: y = x + vals[sb]; break;
+          case OP_SUB: y = x - vals[sb]; break;
+          default: y = x * vals[sb]; break;   // OP_EWMUL
+        }
+      }
+      vals[t] = y;
+    }
+    return vals[p.n_prog - 1];
+  }
 }
 
 template <typename Acc, typename Epi>
@@ -190,42 +253,7 @@ cmm_addmul_kernel(const CmmParams p, int g0) {
       const int r = row0 + ty + 16 * i;
       const int c = col0 + tx + 16 * j;
       if (r >= M || c >= N) continue;
-      Epi v = (Epi)acc[i][j];
-      if (p.n_prog > 0) {
-        Epi vals[CMM_MAX_PROG];
-        for (int t = 0; t < p.n_prog; ++t) {
-          const int op = p.prog[t].op, sa = p.prog[t].a, sb = p.prog[t].b;
-          const Epi s = (Epi)p.prog[t].s;
-          Epi y;
-          if (op == OP_IN) {
-            y = sa == 0 ? (Epi)acc[i][j] : ld<Epi>(p.E[sa - 1], g, r, c);
-          } else {
-            const Epi x = vals[sa];
-            switch (op) {
-              case OP_SIN: y = m_sin(x); break;
-              case OP_COS: y = m_cos(x); break;
-              case OP_EXP: y = m_exp(x); break;
-              case OP_TANH: y = m_tanh(x); break;
-              case OP_ABS: y = m_abs(x); break;
-              case OP_RELU: y = m_relu(x); break;
-              case OP_SQRT: y = m_sqrt(x); break;
-              case OP_SIGN: y = m_sign(x); break;
-              case OP_S_ADD: y = x + s; break;
-              case OP_S_SUB: y = x - s; break;
-              case OP_S_RSUB: y = s - x; break;
-              case OP_S_MUL: y = x * s; break;
-              case OP_S_DIV: y = x / s; break;
-              case OP_S_RDIV: y = s / x; break;
-              case OP_ADD: y = x + vals[sb]; break;
-              case OP_SUB: y = x - vals[sb]; break;
-              default: y = x * vals[sb]; break;   // OP_EWMUL
-            }
-          }
-          vals[t] = y;
-        }
-        v = vals[p.n_prog - 1];
-      }
-      st<Epi>(p.O, g, r, c, v);
+      st<Epi>(p.O, g, r, c, run_epilogue<Epi>(p, g, r, c, (Epi)acc[i][j]));
     }
   }
 }
@@ -240,7 +268,7 @@ extern "C" {
 int cmm_addmul(const CmmParams* hp, void* stream) {
   const CmmParams& p = *hp;
   if (p.n_prog < 0 || p.n_prog > CMM_MAX_PROG || p.n_extras < 0 ||
-      p.n_extras > CMM_MAX_EXTRAS) {
+      p.n_extras > CMM_MAX_EXTRAS || (p.acc_int && p.n_prog > 0)) {
     return (int)cudaErrorInvalidValue;
   }
   for (int t = 0; t < p.n_prog; ++t) {
@@ -260,7 +288,10 @@ int cmm_addmul(const CmmParams* hp, void* stream) {
     const long long left = p.G - g0;
     const dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM,
                     (unsigned)(left < 65535 ? left : 65535));
-    if (p.acc_f64) {
+    if (p.acc_int) {
+      cmm_addmul_kernel<long long, long long>
+          <<<grid, block, 0, s>>>(p, (int)g0);
+    } else if (p.acc_f64) {
       cmm_addmul_kernel<double, double><<<grid, block, 0, s>>>(p, (int)g0);
     } else if (p.epi_f64) {
       cmm_addmul_kernel<float, double><<<grid, block, 0, s>>>(p, (int)g0);

@@ -29,6 +29,7 @@ Each wrapper counts its launches in ``<wrapper>.launches``.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Sequence
 
 import torch
@@ -38,12 +39,14 @@ from . import cuda, ref
 #: limits and block shape compiled into the kernel (checked at load).
 #: An epilogue program grows with the user's single-consumer elementwise
 #: chain (core/fusion.py sets no bound); the paper suite's longest is 7
-#: instructions over 3 extras (Leontief).  Longer programs raise.
+#: instructions over 3 extras (Leontief).  The wrappers refuse longer
+#: programs; the executors cut them with ``split_epilogue``.
 MAX_EXTRAS = 16
 MAX_PROG = 64
 BLOCK = (64, 64, 16)           # (rows, cols, k) of one thread block
 
-_DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
+_DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2,
+               torch.int32: 3, torch.int64: 4}
 
 #: FUSED-program opcodes, in csrc/addmul.cu's order
 _EWISE_OPS = ("sin", "cos", "exp", "tanh", "abs", "relu", "sqrt", "sign")
@@ -67,7 +70,7 @@ class _Instr(ctypes.Structure):
 class _Params(ctypes.Structure):
     _fields_ = ([(f, ctypes.c_int) for f in
                  ("G", "M", "N", "K", "has_c", "n_extras", "n_prog",
-                  "acc_f64", "epi_f64", "pad0", "pad1", "pad2")]
+                  "acc_f64", "epi_f64", "acc_int", "pad1", "pad2")]
                 + [(f, _Operand) for f in ("A", "B", "C", "O")]
                 + [("E", _Operand * MAX_EXTRAS), ("prog", _Instr * MAX_PROG)])
 
@@ -93,6 +96,85 @@ def encode_program(prog: Sequence[tuple]) -> list:
         else:
             out.append((_BINARY_OPS[kind], ins[1], ins[2], 0.0))
     return out
+
+
+@functools.lru_cache(maxsize=256)
+def split_epilogue(prog: tuple, n_extras: int, integer: bool):
+    """Cut an epilogue program into what the kernel runs and the rest.
+
+    Returns ``(head, used, tail)``.  ``head`` is the kernel's program over
+    the accumulator and the extras ``used`` (0-based, in the order the head
+    reads them); ``tail`` is ``None`` when the kernel runs ``prog`` whole,
+    else a program for ``fusion.eval_fused`` over ``[head's value] +
+    extras`` (the original extras, re-read from memory).  ``head`` is the
+    longest prefix of ``prog`` within ``MAX_PROG`` instructions and
+    ``MAX_EXTRAS`` extras whose value is the only one the rest reads (the
+    extras' ``in`` aside), or ``(("in", 0),)`` when no prefix qualifies.
+    An integer product's head is ``None``: the kernel stores the product
+    and the whole program runs in ``eval_fused``, in NumPy's types.
+    """
+    if integer:
+        return None, (), prog
+    if len(prog) <= MAX_PROG and n_extras <= MAX_EXTRAS:
+        return prog, tuple(range(n_extras)), None
+    is_extra = [ins[0] == "in" and ins[1] > 0 for ins in prog]
+    reads = [_operands(ins) for ins in prog]
+    last_read = list(range(len(prog)))
+    for i, ops_ in enumerate(reads):
+        for j in ops_:
+            last_read[j] = i
+    acc_at = [i for i, ins in enumerate(prog) if ins == ("in", 0)]
+    cut, used = None, []
+    for c in range(min(len(prog), MAX_PROG + 1) - 1):
+        ins = prog[c]
+        if is_extra[c] and ins[1] - 1 not in used:
+            used.append(ins[1] - 1)
+        if len(used) > MAX_EXTRAS:
+            break
+        # the kernel stores prog[c] alone: nothing else it computed (the
+        # accumulator included) may be read past c
+        if all(a <= c for a in acc_at) and all(
+                is_extra[i] or last_read[i] <= c for i in range(c)):
+            cut, head_used = c, tuple(used)
+    if cut is None:
+        return (("in", 0),), (), prog
+    slot = {k: n + 1 for n, k in enumerate(head_used)}
+    head = tuple(("in", slot[ins[1] - 1]) if is_extra[i] else ins
+                 for i, ins in enumerate(prog[:cut + 1]))
+    # the tail: the head's value, the extras it re-reads, then the rest
+    new = {cut: 0}
+    tail = [("in", 0)]
+    for i in range(cut):
+        if is_extra[i] and last_read[i] > cut:
+            new[i] = len(tail)
+            tail.append(prog[i])
+    for i in range(cut + 1, len(prog)):
+        new[i] = len(tail)
+        tail.append(_renumber(prog[i], new))
+    return head, head_used, tuple(tail)
+
+
+def _operands(ins: tuple) -> tuple:
+    """Indices of the earlier instructions an instruction reads."""
+    kind = ins[0]
+    if kind == "in":
+        return ()
+    if kind == "ewise":
+        return (ins[2],)
+    if kind == "scale":
+        return (ins[3],)
+    return (ins[1], ins[2])
+
+
+def _renumber(ins: tuple, new: dict) -> tuple:
+    kind = ins[0]
+    if kind == "in":
+        return ins
+    if kind == "ewise":
+        return (kind, ins[1], new[ins[2]])
+    if kind == "scale":
+        return (kind, ins[1], ins[2], new[ins[3]])
+    return (kind, new[ins[1]], new[ins[2]])
 
 
 # -- build and load ------------------------------------------------------
@@ -128,8 +210,8 @@ def reset_launches() -> None:
 def _operand(t: torch.Tensor) -> _Operand:
     code = _DTYPE_CODE.get(t.dtype)
     if code is None:
-        raise TypeError(f"the CUDA addmul kernel takes f32, f64 and bf16, "
-                        f"not {t.dtype}")
+        raise TypeError(f"the CUDA addmul kernel takes f32, f64, bf16, int32 "
+                        f"and int64, not {t.dtype}")
     sg, sr, sc = t.stride()
     return _Operand(t.data_ptr(), sg, sr, sc, code, 0)
 
@@ -146,6 +228,7 @@ def _launch(c: Optional[torch.Tensor], a: torch.Tensor, b: torch.Tensor,
     p = _Params(G=G, M=M, N=N, K=K, has_c=int(c is not None),
                 n_extras=len(extras), n_prog=len(instrs),
                 acc_f64=int(acc == torch.float64),
+                acc_int=int(acc == torch.int64),
                 epi_f64=int(ref.epilogue_dtype(acc, extras)
                             == torch.float64))
     p.A, p.B, p.O = _operand(a), _operand(b), _operand(out)
@@ -192,6 +275,11 @@ def _run(wrapper, c, a, b, out, prog, extras, out_dtype, batched):
     kernel (counted) on CUDA.  ``out`` may alias ``c`` (each element of C
     is read once, by the thread that stores it), never ``a`` or ``b``."""
     _check_shapes(c, a, b, extras, batched)
+    if prog is not None and ref.accumulator_dtype(
+            a.dtype, b.dtype, c.dtype) == torch.int64:
+        raise ValueError("an integer product takes no epilogue program in "
+                         "the kernel (NumPy types each instruction); run "
+                         "the program with fusion.eval_fused")
     if len(extras) > MAX_EXTRAS:
         raise ValueError(f"{len(extras)} epilogue extras exceed the "
                          f"kernel's limit of {MAX_EXTRAS}")

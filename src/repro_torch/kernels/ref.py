@@ -21,9 +21,14 @@ from ..core.fusion import eval_fused
 
 
 def accumulator_dtype(*dtypes: torch.dtype) -> torch.dtype:
-    """f64 if any operand is f64, else f32 (f32 and bf16 accumulate in f32,
-    as the TPU kernel does)."""
-    return torch.float64 if torch.float64 in dtypes else torch.float32
+    """f64 if any operand is f64; int64 if no operand is a float (exact,
+    wrapping around as NumPy's int64 does); else f32 (f32 and bf16
+    accumulate in f32, as the TPU kernel does)."""
+    if torch.float64 in dtypes:
+        return torch.float64
+    if not any(d.is_floating_point for d in dtypes):
+        return torch.int64
+    return torch.float32
 
 
 def epilogue_dtype(acc: torch.dtype,

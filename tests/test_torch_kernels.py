@@ -196,7 +196,7 @@ def test_wrappers_reject_bad_shapes_and_mixed_devices():
 
 
 def test_kernel_type_check_names_supported_dtypes():
-    with pytest.raises(TypeError, match="f32, f64 and bf16"):
+    with pytest.raises(TypeError, match="f32, f64, bf16, int32 and int64"):
         mm._operand(torch.zeros(2, 2, 2, dtype=torch.float16))
 
 

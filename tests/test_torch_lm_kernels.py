@@ -97,6 +97,32 @@ def test_flash_attention_guards():
         fa.flash_attention(q, q.bfloat16(), q)
     with pytest.raises(ValueError, match="B, H, S, D"):
         fa.flash_attention(q[0], q[0], q[0])
+    for variant in fa.WRAPPERS:             # the kernels take CUDA tensors
+        with pytest.raises(ValueError, match="CPU"):
+            variant(q, q, q)
+
+
+@pytest.mark.parametrize("dtype,d,aligned,want", [
+    (torch.bfloat16, 128, True, "mma"), (torch.bfloat16, 64, True, "mma"),
+    (torch.bfloat16, 40, True, "mma"), (torch.bfloat16, 16, True, "mma"),
+    (torch.bfloat16, 20, True, "fma"), (torch.bfloat16, 128, False, "fma"),
+    (torch.float32, 128, True, "fma"), (torch.float32, 16, True, "fma"),
+])
+def test_flash_attention_variant_rule(dtype, d, aligned, want):
+    """bf16 with a head dim that is a multiple of 8 and 16-byte rows goes
+    to the tensor cores; f32 (no TF32) and every other layout to FMA."""
+    assert fa.choose_variant(dtype, d, aligned) == want
+
+
+def test_flash_attention_rows_aligned_reads_strides():
+    bf16 = torch.bfloat16
+    serving = torch.zeros(2, 37, 4, 40, dtype=bf16).transpose(1, 2)
+    assert fa.rows_aligned(serving)                    # (B, S, H, D) view
+    assert fa.rows_aligned(torch.zeros(2, 4, 37, 16, dtype=bf16))
+    assert not fa.rows_aligned(torch.zeros(2, 4, 37, 20, dtype=bf16))
+    assert not fa.rows_aligned(serving[..., 4:])       # base 8 bytes off
+    assert not fa.rows_aligned(
+        torch.zeros(2, 4, 16, 37, dtype=bf16).transpose(2, 3))
 
 
 # -- K6 -----------------------------------------------------------------------
@@ -173,4 +199,4 @@ def test_launch_counters_stay_zero_on_cpu():
     q = torch.ones(1, 16, 2, 8)
     layers.attention(q, q, q)
     ssm.chunkwise_gla(q, q, q, torch.zeros(1, 16, 2), chunk=8)
-    assert [w.launches for w in kernels.wrappers()] == [0] * 6
+    assert [w.launches for w in kernels.wrappers()] == [0] * 7

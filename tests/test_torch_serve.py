@@ -98,7 +98,7 @@ def test_decode_steps_match_reference(runs):
 
 
 def test_no_kernel_launches_on_cpu(runs):
-    assert runs[2]["launches"] == [0] * 6
+    assert runs[2]["launches"] == [0] * 7
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
